@@ -6,7 +6,7 @@ against existing subtractions and FailedSubtraction), chunk them into jobs
 of JOB_SIZE, launch workers, and track Job rows. Job launch is pluggable:
 slurm (sbatch + squeue polling, the reference's Cori pattern) when
 available, else a local subprocess pool — so the control plane runs
-anywhere the TPU host does.
+anywhere the accelerator host does.
 """
 from __future__ import annotations
 

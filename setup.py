@@ -3,7 +3,7 @@ from setuptools import setup, find_packages
 setup(
     name='zuds-tpu',
     version='0.1.0',
-    description='TPU-native transient-discovery image pipeline for ZTF',
+    description='GPU-native transient-discovery image pipeline for ZTF',
     packages=find_packages(exclude=['tests', 'tests.*']),
     package_data={
         'zuds_tpu': ['config/*.yaml', 'alert_schemas/**/*.avsc'],
@@ -12,8 +12,6 @@ setup(
     install_requires=[
         'numpy',
         'jax',
-        'flax',
         'optax',
-        'pyyaml',
     ],
 )

@@ -73,3 +73,42 @@ def test_tracing_spans():
 
     import zuds_tpu as zuds
     assert zuds.timed is tracing.timed
+
+
+def test_parse_config_matches_yaml_on_default():
+    """The flat loader reads the shipped default config exactly as a YAML
+    parser does."""
+    import yaml
+    from zuds_tpu.secrets import DEFAULT_CONFIG, parse_config
+    text = DEFAULT_CONFIG.read_text()
+    assert parse_config(text) == yaml.safe_load(text)
+
+
+@pytest.mark.parametrize('values', [
+    {'db_backend': 'postgres', 'db_port': 5432, 'db_password': None,
+     'db_host': 'localhost'},
+    {'base_data_directory': '/tmp/x y/hot', 'ratio': 1.5, 'flag': True,
+     'quoted': "it's", 'numeric_string': '123', 'empty': '',
+     'hash': 'a # b', 'tilde': '~/.zuds-tpu.db', 'word_null': 'null'},
+])
+def test_parse_config_reads_yaml_dumps(values):
+    """Configs the tests rewrite with yaml.safe_dump load back intact."""
+    import yaml
+    from zuds_tpu.secrets import parse_config
+    assert parse_config(yaml.safe_dump(values)) == values
+
+
+def test_parse_config_inline_mapping_and_comments():
+    from zuds_tpu.secrets import parse_config
+    cfg = parse_config('---\n# heading\n\nmesh: {data: 4, model: 1}  # c\n'
+                       "path: '/a#b' # trailing\nnone: ~\n")
+    assert cfg == {'mesh': {'data': 4, 'model': 1}, 'path': '/a#b',
+                   'none': None}
+
+
+@pytest.mark.parametrize('text', ['nested:\n  key: 1\n', '- item\n',
+                                  'novalue\n', 'a:b\n'])
+def test_parse_config_rejects_unsupported(text):
+    from zuds_tpu.secrets import parse_config
+    with pytest.raises(ValueError):
+        parse_config(text)

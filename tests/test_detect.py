@@ -294,7 +294,7 @@ def test_deblend_overflow_counter(rng):
 
 
 def test_prefix_count_matches_cumsum():
-    """MXU-blocked prefix sum == jnp.cumsum across the recursion levels,
+    """Matmul-blocked prefix sum == jnp.cumsum across the recursion levels,
     padding remainders, and the small-n fallback (detect.py compaction)."""
     from zuds_tpu.ops.detect import prefix_count, compact_indices
     rng2 = np.random.default_rng(11)

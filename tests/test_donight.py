@@ -66,6 +66,7 @@ def test_run_night_batched(night_dir):
                          order=1, nreg=1, max_det=384, box=128)
     res = run_night(work, batch=2, ml=False, db=False, cfg=cfg)
     assert len(res) == 4
+    assert res.fallbacks == 0          # every pair took the batched path
     for path, r in res:
         assert not isinstance(r, Exception), (path, r)
         assert r >= 1, (path, 'transient not detected')
@@ -89,3 +90,28 @@ def test_run_night_batched(night_dir):
         j = np.argmin(np.hypot(dx, dy))
         assert cat.data['ERRAWIN_IMAGE'][j] > 0
         assert np.isfinite(cat.data['ERRA_WORLD'][j])
+
+
+def test_run_night_counts_fallbacks(night_dir, monkeypatch):
+    """Pairs the batched path cannot take go to the per-pair chain, and
+    the night's results count them."""
+    import dosub
+    from donight import run_night
+    from zuds_tpu.parallel import PipelineConfig
+
+    served = []
+
+    def fake_do_one(line, ml=True):
+        served.append(line)
+        return None, [object(), object()]
+
+    monkeypatch.setattr(dosub, 'do_one', fake_do_one)
+    ref = str(night_dir / 'ztf_night_ref_sciimg.fits')
+    work = [f'{night_dir}/ztf_night{i}_sciimg.fits {ref}' for i in range(3)]
+    # a bucket these frames do not fit: every pair leaves the batched path
+    cfg = PipelineConfig(height=H + 8, width=W, ksize=9, stamp=25, smax=36,
+                         order=1, nreg=1, max_det=384, box=128)
+    res = run_night(work, batch=2, ml=False, db=False, cfg=cfg)
+    assert res.fallbacks == 3
+    assert len(served) == 3
+    assert [r for _, r in res] == [2, 2, 2]

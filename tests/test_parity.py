@@ -1,9 +1,10 @@
-"""External parity harness (VERDICT r1 item 4).
+"""External parity harness.
 
 Oracle-based golden tests: independent float64 NumPy implementations of
-the three core kernels — Lanczos-3 warp, CLIPPED combine, Alard-Lupton
-fit — validate the device ops against first-principles math instead of
-pinning the ops' own outputs. Tolerances are expressed in the north-star
+the core kernels (``tests/oracles.py``) — Lanczos-3 warp, CLIPPED
+combine, Alard-Lupton fit, connected components, apertures — validate the
+device ops against first-principles math instead of pinning the ops' own
+outputs. ``chip_smoke.py`` runs the same oracles at full quadrant size. Tolerances are expressed in the north-star
 photometric budget (sub-mmag = flux ratios within 1e-3 mag ~ 0.092%).
 
 The end-to-end leg feeds synthetic stars through the REAL captured ZTF
@@ -19,100 +20,11 @@ import os
 import numpy as np
 import pytest
 
+from oracles import (MMAG, oracle_aperture, oracle_al_fit,
+                     oracle_al_model, oracle_b0_field, oracle_clipped_coadd,
+                     oracle_labels, oracle_warp, same_partition)
+
 DATA = os.path.join(os.path.dirname(__file__), 'data')
-MMAG = 1e-3 * np.log(10) / 2.5          # 1 mmag as a relative flux error
-
-
-# ---------------------------------------------------------------------------
-# float64 oracles (independent of zuds_tpu.ops)
-# ---------------------------------------------------------------------------
-
-def oracle_lanczos3(t):
-    t = np.asarray(t, float)
-    out = np.sinc(t) * np.sinc(t / 3.0)
-    return np.where(np.abs(t) < 3.0, out, 0.0)
-
-
-def oracle_warp(img, u, v):
-    """Direct 6x6-tap Lanczos-3 interpolation, float64, weights
-    renormalized to unit sum (the documented SWarp deviation of
-    ops/resample.py)."""
-    H, W = img.shape
-    out = np.zeros(u.shape)
-    wsum = np.zeros(u.shape)
-    iu = np.floor(u).astype(int)
-    iv = np.floor(v).astype(int)
-    fu = u - iu
-    fv = v - iv
-    inb = ((iu - 2 >= 0) & (iu + 3 <= W - 1)
-           & (iv - 2 >= 0) & (iv + 3 <= H - 1))
-    iuc = np.clip(iu, 2, W - 4)
-    ivc = np.clip(iv, 2, H - 4)
-    for dy in range(-2, 4):
-        wy = oracle_lanczos3(fv - dy)
-        for dx in range(-2, 4):
-            w = oracle_lanczos3(fu - dx) * wy
-            out += img[ivc + dy, iuc + dx] * w
-            wsum += w
-    out = out / np.where(wsum == 0, 1.0, wsum)
-    return out * inb, inb.astype(float)
-
-
-def oracle_clipped_coadd(imgs, weights, scales=None, nsigma=4.0,
-                         amp_frac=0.3):
-    """CLIPPED weighted-mean combine (Gruen et al. 2014 semantics as
-    specified in ops/coadd.py), float64."""
-    imgs = np.asarray(imgs, float).copy()
-    weights = np.asarray(weights, float).copy()
-    if scales is not None:
-        imgs *= np.asarray(scales, float)[:, None, None]
-        weights /= np.asarray(scales, float)[:, None, None] ** 2
-    ok = weights > 0
-    sigma = np.where(ok, 1.0 / np.sqrt(np.maximum(weights, 1e-30)), np.inf)
-    med = np.zeros(imgs.shape[1:])
-    for i in range(imgs.shape[1]):
-        for j in range(imgs.shape[2]):
-            v = imgs[:, i, j][ok[:, i, j]]
-            med[i, j] = np.median(v) if len(v) else 0.0
-    keep = ok & (np.abs(imgs - med[None]) <= nsigma * sigma
-                 + amp_frac * np.abs(med)[None])
-    wsum = np.sum(np.where(keep, weights, 0.0), axis=0)
-    csum = np.sum(np.where(keep, weights * imgs, 0.0), axis=0)
-    return np.where(wsum > 0, csum / np.where(wsum > 0, wsum, 1), 0.0), wsum
-
-
-def oracle_al_fit(ref, sci, ivar, xs, ys, basis_dense, stamp):
-    """Alard-Lupton kernel fit by dense float64 least squares: model
-    sci ~ sum_n a_n (B_n * ref) + bg over star stamps (order 0, one
-    region), solved directly with lstsq — no normal equations, no
-    device code."""
-    from numpy.lib.stride_tricks import sliding_window_view
-    Nb, K, _ = basis_dense.shape
-    P = stamp
-    Pi = P - K + 1
-    rows = []
-    targ = []
-    wts = []
-    for x, y in zip(xs, ys):
-        x0 = int(round(x)) - P // 2
-        y0 = int(round(y)) - P // 2
-        R = ref[y0:y0 + P, x0:x0 + P].astype(float)
-        S = sci[y0:y0 + P, x0:x0 + P].astype(float)
-        V = ivar[y0:y0 + P, x0:x0 + P].astype(float)
-        # valid cross-correlation of R with each basis (matches
-        # lax.conv_general_dilated orientation: no kernel flip)
-        windows = sliding_window_view(R, (K, K))          # (Pi,Pi,K,K)
-        C = np.einsum('ijkl,nkl->nij', windows, basis_dense)
-        off = K // 2
-        rows.append(np.concatenate(
-            [C.reshape(Nb, -1), np.ones((1, Pi * Pi))], axis=0).T)
-        targ.append(S[off:off + Pi, off:off + Pi].ravel())
-        wts.append(V[off:off + Pi, off:off + Pi].ravel())
-    A = np.concatenate(rows, axis=0)
-    b = np.concatenate(targ)
-    w = np.sqrt(np.concatenate(wts))
-    coeffs, *_ = np.linalg.lstsq(A * w[:, None], b * w, rcond=None)
-    return coeffs
 
 
 # ---------------------------------------------------------------------------
@@ -222,7 +134,7 @@ def test_al_fit_parity_oracle(rng):
     sci = sum(c * fftconvolve(ref, dense[n][::-1, ::-1], mode='same')
               for n, c in enumerate(truth) if c) + 30.0
 
-    coeffs_o = oracle_al_fit(ref, sci, ivar, xs, ys, dense, stamp=31)
+    coeffs_o = oracle_al_fit(ref, sci, ivar, xs, ys, dense, stamp=31)[0]
     assert abs(coeffs_o[0] / truth[0] - 1.0) < 1e-6   # oracle sanity
 
     fit = fit_kernel(jnp.asarray(ref, jnp.float32),

@@ -1,4 +1,4 @@
-"""Time the fused pipeline truncated after each stage (TPU).
+"""Time the fused pipeline truncated after each stage (on the GPU).
 
 Pinpoints where full-pipeline wall-clock diverges from stage-sum
 expectations. Usage: python tools/bisect_pipeline.py [order] [stage ...]

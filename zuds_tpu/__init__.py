@@ -1,8 +1,8 @@
-"""zuds_tpu — TPU-native transient-discovery pipeline for ZTF.
+"""zuds_tpu — accelerator-native transient-discovery pipeline for ZTF.
 
 A ground-up rebuild of the ZUDS pipeline with the astromatic/hotpants
-subprocess kernels replaced by JAX/XLA/Pallas device ops batched over ZTF
-quadrants. Public API mirrors the reference's flat namespace
+subprocess kernels replaced by JAX/XLA device ops batched over ZTF
+quadrants, run on an NVIDIA GPU. Public API mirrors the reference's flat namespace
 (``zuds/__init__.py:6-42``).
 """
 __version__ = '0.1.0'
@@ -17,7 +17,7 @@ from .utils import (              # noqa: F401
 from .fits import Header, HDU, read_fits, write_fits  # noqa: F401
 
 # Modules below are imported lazily on attribute access to keep
-# `import zuds_tpu` fast (JAX/flax only load when device ops are used).
+# `import zuds_tpu` fast (JAX only loads when device ops are used).
 _LAZY_MODULES = {
     'ops': 'zuds_tpu.ops',
     'models': 'zuds_tpu.models',

@@ -73,7 +73,7 @@ class Alert(Model):
             'snr': float(detection.snr) if np.isfinite(detection.snr)
             else 0.0,
             'drb': detection.rb if detection.rb is not None else 0.0,
-            'drbversion': 'braai_d6_m9-flax',
+            'drbversion': 'braai_d6_m9-jax',
         })
 
         target = getattr(image, 'target_image', None)

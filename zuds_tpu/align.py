@@ -37,8 +37,8 @@ def align_image(image, other, persist_aligned=False):
         if other.basename else '_aligned.remap'
 
     # host-planned fast path: integer pre-shift + residual-window
-    # shift-accumulate (full-frame gather warps cost ~100 ms/tap on TPU);
-    # generic mappings fall back to the gather warp
+    # shift-accumulate (no full-frame gathers); generic mappings fall back
+    # to the gather warp
     from .ops.resample import plan_warp, warp_planned
     src_shape = tuple(np.asarray(image.data).shape)
     plan = plan_warp(grid, (h, w), src_shape)

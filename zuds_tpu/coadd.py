@@ -83,7 +83,7 @@ def _coadd_fused(images, wcs, H, W, subtract_back=True):
     def stack(k, pad):
         # jnp.stack, not np.stack: 'img'/'mask' are device-resident
         # (prepare_epoch_inputs embeds+rolls on device) — np.stack would
-        # pull them back over the host link (r5 profile)
+        # pull them back over the host link
         parts = [jnp.asarray(e[k]) for e in eps]
         a = jnp.stack(parts)
         if Nb > N:

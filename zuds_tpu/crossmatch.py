@@ -1,8 +1,8 @@
 """Alert enrichment crossmatches (reference: zuds/crossmatch.py).
 
 The reference queries Kowalski (PS1/sgscore, ZTF alerts, milliquas, TNS) and
-a private DR8 postgres. Those services are unreachable from an offline TPU
-pod, so every service is gated: locally-loaded DR8/CLU tables (``external``
+a private DR8 postgres. Those services are unreachable from an offline
+compute node, so every service is gated: locally-loaded DR8/CLU tables (``external``
 models) are searched through the q3c-equivalent layer, and remote services
 are attempted only when credentials are configured and the client import
 succeeds. ``xmatch`` aggregates whatever succeeded — identical output keys,

@@ -25,7 +25,7 @@ CUTSIZE = 11  # negpix veto box, px
 
 
 def load_model_helper(path=None, model_base_name=BRAAI_MODEL):
-    """Load braai weights (npz) if present; fresh flax init otherwise."""
+    """Load braai weights (npz) if present; fresh seeded init otherwise."""
     from .models.braai import load_braai
     weights = None
     if path is not None:

@@ -2,7 +2,7 @@
 
 The reference scatters a file list over MPI ranks + slurm array tasks
 (``zuds/mpi.py:36-64``); communication is scatter + barrier only. The
-TPU-native equivalent keeps the identical file-list semantics but derives
+device-native equivalent keeps the identical file-list semantics but derives
 (rank, size) from, in priority order: ``jax.distributed`` process info when
 initialized, MPI via mpi4py when launched under mpirun, else slurm env vars,
 else single-process. Device-level parallelism lives in

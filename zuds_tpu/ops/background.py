@@ -32,8 +32,7 @@ __all__ = ['background_mesh', 'interpolate_mesh', 'median_filter_mesh',
 def masked_median(x, valid, axis=-1):
     """Exact median over ``axis`` counting only ``valid`` entries (sort
     based; use for small axes — the background mesh uses the bisection
-    variant below, which is reduction-only and ~100x faster on TPU for the
-    16k-pixel cells)."""
+    variant below, which is reduction-only, for the 16k-pixel cells)."""
     big = jnp.asarray(jnp.inf, dtype=x.dtype)
     xs = jnp.sort(jnp.where(valid, x, big), axis=axis)
     cnt = jnp.sum(valid, axis=axis, keepdims=True)
@@ -148,8 +147,8 @@ def background_mesh(img, valid=None, box=128, filter_size=3, iters=3):
 
     # The sigma-clip ITERATIONS run on a strided subsample of each cell:
     # every bisect-median iteration and clip pass is a full-frame
-    # reduction (~0.4 ms), and 3 clip rounds x (12 median bisections + 3
-    # moment passes) cost ~45 passes/frame on v5e — the subsample cuts
+    # reduction, and 3 clip rounds x (12 median bisections + 3 moment
+    # passes) cost ~45 frame passes — the subsample cuts
     # that ~5x while a 128^2 cell still keeps ~3300 samples (median
     # sampling error ~sigma/sqrt(N) ~ 0.02 sigma, far inside SExtractor's
     # own cell noise). The stride is ODD (coprime with the cell row

@@ -18,8 +18,9 @@ for masks, plus the FLXSCALE zeropoint normalization of
   an OR mode is provided for conservative propagation.
 
 Inputs are the already-warped (epoch, H, W) stacks from ``ops/resample``.
-Everything is elementwise/VPU work fused by XLA; epochs stream through a
-``lax.scan`` variant for stacks too deep for HBM (see ``clipped_coadd_scan``).
+Everything is elementwise work fused by XLA; epochs stream through a
+``lax.scan`` variant for stacks too deep for device memory (see
+``clipped_coadd_scan``).
 """
 from __future__ import annotations
 

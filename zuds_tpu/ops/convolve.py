@@ -19,10 +19,9 @@ def conv2_same(img, kernel, max_taps=49):
     """Direct 2-D 'same' convolution.
 
     Small kernels run as unrolled shift-FMA taps (zero-padded static
-    slices): XLA's conv_general_dilated runs ~1000x below peak at
-    quadrant scale on the TPU target (a single 3x3 conv costs tens of ms;
-    9 shifted FMAs cost ~2 ms). Kernels above ``max_taps`` fall back to
-    the XLA conv.
+    slices) that XLA fuses into one elementwise pass. Kernels above
+    ``max_taps`` fall back to the XLA conv, at HIGHEST precision so that
+    an f32 conv does not drop to TF32 on the GPU.
     """
     try:
         k = np.asarray(kernel, dtype=np.float32)
@@ -51,7 +50,7 @@ def conv2_same(img, kernel, max_taps=49):
         img4, k4, window_strides=(1, 1),
         padding=[(kh // 2, (kh - 1) // 2), (kw // 2, (kw - 1) // 2)],
         dimension_numbers=('NCHW', 'OIHW', 'NCHW'),
-        precision=jax.lax.Precision.HIGH)
+        precision=jax.lax.Precision.HIGHEST)
     return out[0, 0]
 
 

@@ -6,8 +6,8 @@ matched-filter detection at DETECT_THRESH=1.5 sigma with DETECT_MINAREA=5,
 8-connected component extraction, isophotal moments/shape measurement, and
 flag propagation (IMAFLAGS_ISO / FLAGS_WEIGHT analogues).
 
-TPU design notes
-----------------
+Design notes
+------------
 * Connected-component labeling runs as alternating 3x3 min-pool sweeps
   (``lax.reduce_window``) and pointer-jumping rounds (``labels = labels[labels]``
   gather), so label convergence takes O(log diameter) rounds instead of
@@ -46,14 +46,14 @@ __all__ = ['label_components', 'detect_sources', 'DETECTION_FIELDS',
 
 def _prefix_sum_f32(x, blk=128):
     """Inclusive prefix sum of a flat f32 vector of non-negative integers
-    via blocked TRIANGULAR MATMULS on the MXU. XLA lowers ``jnp.cumsum``
-    to ~log2(n) full-array passes (a 9.4M cumsum measured ~45 ms inside
-    the detect compaction on v5e, tools/bisect_detect_in_pipe.py r3); the
-    blocked form reads/writes the array ~3x and pushes the scan work
-    through (n/128, 128) @ (128, 128) HIGHEST-precision matmuls, which
-    the MXU runs at roofline. Exact while the total stays < 2^24 —
-    enforced below (n is static at trace time; a multi-frame caller
-    would otherwise get silently wrong ranks, ADVICE r3)."""
+    via blocked TRIANGULAR MATMULS. XLA lowered ``jnp.cumsum`` to
+    ~log2(n) full-array passes on the accelerator this was first tuned
+    for; the blocked form reads/writes the array ~3x and pushes the scan
+    work through (n/128, 128) @ (128, 128) HIGHEST-precision matmuls (an
+    A/B against ``jnp.cumsum`` on the GPU is queued, PERF.md). Exact
+    while the total stays < 2^24 — which needs full f32 products, hence
+    HIGHEST — enforced below (n is static at trace time; a multi-frame
+    caller would otherwise get silently wrong ranks)."""
     n = x.shape[0]
     assert n < (1 << 24), (
         f'_prefix_sum_f32 is exact only below 2^24 running totals; '
@@ -71,7 +71,7 @@ def _prefix_sum_f32(x, blk=128):
 
 
 def prefix_count(mask):
-    """Inclusive prefix count of a flat bool mask (int32), MXU-blocked."""
+    """Inclusive prefix count of a flat bool mask (int32), matmul-blocked."""
     return _prefix_sum_f32(mask.astype(jnp.float32)).astype(jnp.int32)
 
 
@@ -88,22 +88,19 @@ def compact_indices(mask, size, fill_value):
     (ascending flat order), padded with ``fill_value`` — the semantics of
     ``jnp.nonzero(mask, size=size, fill_value=...)[0]`` WITHOUT its
     lowering: jax 0.9.0 implements nonzero as cumsum(bincount(cumsum)),
-    and bincount is a full-domain scatter-ADD that measures ~120-400 ms
-    at 9.4M elements on v5e (tools/bench_nonzero.py r3). Entries past
+    and bincount is a full-domain scatter-ADD at 9.4M elements. Entries past
     ``size`` are dropped — the raggedest-tail overflow rule callers
     already count.
 
-    Small domains use a rank scatter (one MXU-blocked prefix count + one
+    Small domains use a rank scatter (one matmul-blocked prefix count + one
     dropped-OOB scatter of unique ranks). Large (frame-sized) domains use
     OUTPUT-SIDE rank-select instead: the scatter's cost scales with the
-    9.4M input elements (measured ~45 ms of the 485 ms frame,
-    tools/bisect_pipeline.py r4) even though only ``size`` land; selecting
+    9.4M input elements even though only ``size`` land; selecting
     from the output side touches ~size*16 gathered words. Structure:
     pack the mask into 256-px block bitmaps (16 u16 words each, pure
     vector ops), prefix the block counts, scatter each contributing
     block's id at its output offset + cummax-fill (block-of-output with
-    no searchsorted — PERF.md: a 65k searchsorted is ~17 chained
-    gathers), then per output slot gather the block's 16 words and
+    no searchsorted — a 65k searchsorted is ~17 chained gathers), then per output slot gather the block's 16 words and
     binary-descend to the rank's set bit with SWAR popcounts."""
     n = mask.shape[0]
     if n <= (1 << 17):
@@ -159,8 +156,9 @@ INT_MAX = np.iinfo(np.int32).max
 def _minpool3(x):
     """3x3 min-pool via shifted elementwise mins.
 
-    lax.reduce_window with an int min is ~15 ms/frame on v5e; six fused
-    elementwise mins with edge-padded shifts are ~0.6 ms."""
+    Six fused elementwise mins with edge-padded shifts: one streaming
+    pass, where lax.reduce_window with an int min lowered to a slow
+    windowed reduction on the accelerator this was first tuned for."""
     pad_row = jnp.full((1, x.shape[1]), INT_MAX, dtype=x.dtype)
     up = jnp.concatenate([x[1:], pad_row], axis=0)
     down = jnp.concatenate([pad_row, x[:-1]], axis=0)
@@ -182,9 +180,9 @@ def label_components(det, max_rounds=32, sweeps=8, hops=1):
     the distance traveled along monotone label chains). Rounds repeat under
     a ``while_loop`` until the labeling reaches its fixed point.
 
-    TPU cost model: min-pools are cheap streaming VPU work (~0.3 ms/frame);
-    pointer hops are full-frame random gathers (~30-50 ms each) — so rounds
-    lean on sweeps and use few hops. Compact astronomical footprints
+    Cost model: min-pools are cheap streaming elementwise work; pointer
+    hops are full-frame random gathers — so rounds lean on sweeps and use
+    few hops. Compact astronomical footprints
     converge in round 1; ``max_rounds`` bounds adversarial snakes.
     """
     H, W = det.shape
@@ -201,7 +199,7 @@ def label_components(det, max_rounds=32, sweeps=8, hops=1):
             hopped = jnp.where(det, l.ravel()[safe], INT_MAX)
             return jnp.minimum(l, hopped)
 
-        # pointer hops are full-frame gathers (~100 ms at quadrant scale);
+        # pointer hops are full-frame gathers;
         # compact sources converge on sweeps alone in rounds 0-1, so hops
         # only engage for stubborn (large/snaking) components
         return jax.lax.cond(
@@ -230,7 +228,7 @@ def _compact_adjacency(pidx, pok, shape, inv=None):
 
     With ``inv`` (the scattered flat-index -> position map) each direction
     is ONE cheap gather; without it, a searchsorted binary search (17
-    chained 65k gathers ~2 ms each on v5e — 8 directions cost ~280 ms)."""
+    chained 65k gathers per direction)."""
     H, W = shape
     cap = pidx.shape[0]
     x = pidx % W
@@ -238,8 +236,7 @@ def _compact_adjacency(pidx, pok, shape, inv=None):
             (0, 1), (1, -1), (1, 0), (1, 1)]
     if inv is not None:
         # batch all 8 directions into ONE (8, cap) gather of the inverse
-        # map (8 sequential (cap,) gathers cost ~2 ms each on v5e; the
-        # batched take amortizes to ~3 ms total)
+        # map (one batched take instead of 8 sequential (cap,) gathers)
         dy = jnp.asarray([o[0] for o in offs], jnp.int32)[:, None]
         dx = jnp.asarray([o[1] for o in offs], jnp.int32)[:, None]
         tgt = pidx[None] + dy * W + dx                       # (8, cap)
@@ -286,8 +283,7 @@ def _label_masked(pidx, active, nbr_pos, nbr_ok, pos_of, rounds=12):
     take ``l[l]`` with no searchsorted in the loop. ``active`` may be
     (cap,) for one labeling or (L, cap) for L independent levels labeled
     concurrently (the multi-threshold deblend batches all its levels into
-    one run — 31 sequential labelings cost ~28 s/quadrant on v5e, the
-    batched form ~10 ms). Returns component-min flat indices (INT_MAX on
+    one run instead of 31 sequential labelings). Returns component-min flat indices (INT_MAX on
     inactive pixels), same shape as ``active``.
     """
     cap = pidx.shape[0]
@@ -303,7 +299,7 @@ def _label_masked(pidx, active, nbr_pos, nbr_ok, pos_of, rounds=12):
 
     # fully unrolled (python loops, no fori): while-loop carries force
     # per-iteration copies of every (L, cap) operand through the loop
-    # boundary (~80 ms/round observed in device traces); the unrolled
+    # boundary; the unrolled
     # chain fuses as straight-line vector code
     l = l0
     for _ in range(rounds):
@@ -327,11 +323,10 @@ def _label_compact(pidx, pok, shape, max_rounds=12):
     neighbors, and path compression jumps ``l <- min(l, l[pos(l)])``.
     Returns the component-min flat index per compact pixel.
 
-    TPU cost model: the full-frame variant (min-pool sweeps + full-frame
-    pointer hops) costs ~370 ms/quadrant because each hop is a 9.4M-px
-    gather; here every gather is over the 65k-entry compact list (~µs), so
-    labeling converges in O(log diameter) rounds at ~1 ms/round
-    (tools/profile_stages.py r2).
+    Cost model: in the full-frame variant (min-pool sweeps + full-frame
+    pointer hops) each hop is a 9.4M-px gather; here every gather is over
+    the 65k-entry compact list, so labeling converges in O(log diameter)
+    cheap rounds.
     """
     nbr_pos, nbr_ok = _compact_adjacency(pidx, pok, shape)
     return _label_masked(pidx, pok, nbr_pos, nbr_ok, _make_pos_of(pidx),
@@ -341,9 +336,8 @@ def _label_compact(pidx, pok, shape, max_rounds=12):
 def _segmented_scan(vals, start, combine):
     """Inclusive segmented scan: within runs delimited by ``start`` flags,
     combine left-to-right with ``combine`` (associative). Pure vector ops —
-    the TPU-friendly replacement for per-pixel segment reductions (a single
-    segment_sum over the 65k compact list costs ~10 ms on v5e; a 17-step
-    associative scan costs ~0.3 ms)."""
+    a replacement for per-pixel segment reductions (scatter-based
+    segment_sum) over the 65k compact list."""
     def op(a, b):
         va, sa = a
         vb, sb = b
@@ -383,8 +377,8 @@ def _deblend_exact(pidx, pok, comppos, cellpos, filt_c,
     root flat index of the DEEPEST split branch containing its watershed
     cell (base component root when never split).
 
-    TPU structure (v5e gather economics: a data-dependent 65k gather costs
-    ~2 ms, a 65k-index segment op ~10 ms):
+    Structure (data-dependent gathers and segment ops are the expensive
+    primitives, so few of them):
     * all level labelings run CONCURRENTLY as one batched position-space
       hook+compress, INITIALIZED from the watershed-cell peaks — the
       level-component graph over cells is tiny, so 4 rounds converge;
@@ -440,9 +434,9 @@ def _deblend_exact(pidx, pok, comppos, cellpos, filt_c,
         ])
 
     # ---- batched level labeling in CELL space -----------------------------
-    # The r2-r4 form iterated hook+compress on (L, cap) PIXEL labels with
-    # a (L, 8, cap) neighbor take per round — 174 ms/frame at production
-    # caps (tools/bisect_detect_in_pipe r5), 40% of the whole chain. But
+    # An earlier form iterated hook+compress on (L, cap) PIXEL labels with
+    # a (L, 8, cap) neighbor take per round — a large share of the whole
+    # chain. But
     # the init already assigns every active pixel its watershed-cell peak,
     # so the labeling only ever merges CELLS: the equivalent quotient
     # graph has ~2.5k cells and ~28k cross-cell edges on a busy quadrant
@@ -490,10 +484,10 @@ def _deblend_exact(pidx, pok, comppos, cellpos, filt_c,
         m = _segmented_scan(val, startL, jnp.minimum)
         mpad = jnp.concatenate([m, jnp.full((L, 1), infc)], axis=1)
         lab = jnp.minimum(lab, jnp.take(mpad, cell_last, axis=1))
-        # 3 pointer jumps: on this toolchain each (L, ccap) jump is
-        # LATENCY-bound, not size-bound — a 13-jump full-compression
-        # variant measured 761 ms/frame whole-program vs ~310 (r5 A/B);
-        # more hook rounds with shallow compression win.
+        # 3 pointer jumps: each (L, ccap) jump is LATENCY-bound, not
+        # size-bound — a 13-jump full-compression variant was more than
+        # twice as slow whole-program on the accelerator this was first
+        # tuned for; more hook rounds with shallow compression win.
         for _c in range(3):
             lab = jnp.minimum(lab, jnp.take_along_axis(lab, lab, axis=1))
         return lab
@@ -620,13 +614,13 @@ def detect_sources(bkgsub, rms, mask=None, weight_ok=None,
     flat = jnp.arange(H * W, dtype=jnp.int32).reshape(H, W)
     nseg = max_det + 2
 
-    # TPU scatter/gather discipline: segment-reduce over a fixed-capacity
+    # scatter/gather discipline: segment-reduce over a fixed-capacity
     # COMPACTED pixel list, not the full frame — detected pixels are <<1% of
-    # a frame and full-frame scatters/gathers cost ~100 ms each. Capacity
+    # a frame and full-frame scatters/gathers touch all 9.4M. Capacity
     # overflow drops the raggedest tail (counted in ``pix_overflow`` and
     # raised as FLAGS bit 128 on every object). Every detect cost scales
     # with ``cap``: 32 px/object is already generous for real subtraction
-    # frames (whole-program A/B r3: cap 64k -> 32k saves ~38 ms/frame);
+    # frames;
     # crowded-field truncation is detectable, not silent.
     cap = det_cap if det_cap else min(H * W, max(1 << 14, 32 * max_det))
     det_flat = det.ravel()
@@ -635,7 +629,7 @@ def detect_sources(bkgsub, rms, mask=None, weight_ok=None,
     pok = jnp.arange(cap) < jnp.minimum(ndet_pix, cap)
     # inverse map flat index -> compact position: ONE 65k scatter replaces
     # every searchsorted (a vectorized binary search costs 17 chained 65k
-    # gathers ~2 ms each on v5e). Non-detected pixels map to -1, so
+    # gathers). Non-detected pixels map to -1, so
     # "neighbor detected?" is a sign test on a single gather.
     inv = jnp.full(H * W, -1, jnp.int32).at[pidx].set(
         jnp.where(pok, jnp.arange(cap, dtype=jnp.int32), -1))
@@ -647,8 +641,8 @@ def detect_sources(bkgsub, rms, mask=None, weight_ok=None,
         return {'dbg': jnp.sum(pidx) + jnp.sum(inv)}
 
     # ---- base connected components ---------------------------------------
-    # full-frame min-pool sweeps are the cheapest primitive (~0.6 ms each,
-    # pure VPU): 24 sweeps converge every component of diameter <= 24
+    # full-frame min-pool sweeps are the cheapest primitive (pure
+    # elementwise): 24 sweeps converge every component of diameter <= 24
     # exactly; position-space hook+compress rounds then repair longer
     # chains, iterated to a FIXED POINT under a while_loop (a bounded
     # round count silently split quadrant-crossing trails/bleeds; typical
@@ -661,7 +655,8 @@ def detect_sources(bkgsub, rms, mask=None, weight_ok=None,
 
     # 12 sweeps seed most components exactly; the while_loop repair below
     # is the correctness guarantee (fixed point), so sweeps are purely an
-    # accelerator — 24 sweeps spent ~14 ms to save ~1 repair round
+    # accelerator — 24 sweeps cost more than the ~1 repair round they
+    # save
     labels_f = jax.lax.fori_loop(0, 12, sweep, labels_f)
     posidx = jnp.arange(cap, dtype=jnp.int32)
     seedpos = pos_of(labels_f.ravel()[pidx])
@@ -735,7 +730,7 @@ def detect_sources(bkgsub, rms, mask=None, weight_ok=None,
 
     # steepest ascent to the cell peak by pointer DOUBLING in position
     # space: 6 squarings reach any peak within 2^6 px (a fixed-step chase
-    # costs one ~2 ms gather per pixel of path length)
+    # costs one gather per pixel of path length)
     cellpos = jax.lax.fori_loop(0, 6, lambda _, p: p[p], ppos)
     p_c = jnp.where(pok, pidx[cellpos], H * W - 1)
     if dbg_stop_after == 'cell':
@@ -842,9 +837,8 @@ def detect_sources(bkgsub, rms, mask=None, weight_ok=None,
         return arr2d.ravel()[pidx]
 
     # ---- per-object statistics via ONE sort + segmented scans ------------
-    # (each per-pixel segment reduction costs ~10 ms on v5e; a multi-
-    # operand sort costs one pass and every statistic becomes a ~0.3 ms
-    # associative scan)
+    # (one sort pass, then every statistic is a cheap associative scan
+    # instead of a scatter-based per-pixel segment reduction)
     vals = gat(img)                      # (cap,) detection-image values
     pos = jnp.maximum(vals, 0.0)
     pxx = (pidx % W).astype(jnp.float32)
@@ -853,13 +847,13 @@ def detect_sources(bkgsub, rms, mask=None, weight_ok=None,
     wnot = jnp.where(gat(weight_ok), 0, 1)
     thr_c2 = gat(thresh_map)
 
-    # 2-operand sort + permutation gathers: a multi-operand lax.sort
-    # costs ~140 ms at 65k on v5e, the (key, perm) sort ~9 ms and each
-    # permuted gather ~2 ms
+    # 2-operand sort + permutation gathers: a (key, perm) sort was far
+    # cheaper than a multi-operand lax.sort at 65k on the accelerator this
+    # was first tuned for
     cid_s, perm = jax.lax.sort(
         (cid, jnp.arange(cap, dtype=jnp.int32)), num_keys=1)
     # batch the permutation gathers: two (k, cap) takes instead of seven
-    # sequential (cap,) gathers (~2 ms each on v5e; batching amortizes)
+    # sequential (cap,) gathers
     fs = jnp.take(jnp.stack([vals, pxx, pyy, thr_c2]), perm, axis=1)
     vals_s, pxx_s, pyy_s, thr_s = fs[0], fs[1], fs[2], fs[3]
     ii = jnp.take(jnp.stack([m32, wnot, deb_ovf.astype(jnp.int32)]),
@@ -877,8 +871,7 @@ def detect_sources(bkgsub, rms, mask=None, weight_ok=None,
 
     def seg_stat_batched(v, combine, empty):
         """v (k, cap) -> (k, nseg): one multi-operand segmented scan
-        instead of k sequential ones (each scan costs ~0.3-0.6 ms on v5e;
-        the lanes batch for free)."""
+        instead of k sequential ones (the lanes batch for free)."""
         scanned = _segmented_scan(v, jnp.broadcast_to(start, v.shape),
                                   combine)
         picked = scanned[:, ends]                        # (k, nseg)

@@ -44,8 +44,7 @@ def upsample_mapping(u_coarse, v_coarse, shape, step):
 
     The grid is uniform, so the upsample is a pure broadcast + reshape block
     expansion (each coarse cell -> a step x step block with fixed bilinear
-    weights): zero gathers. TPU gathers on the misaligned coarse grid cost
-    seconds per frame; this form costs ~1 ms.
+    weights): zero gathers on the misaligned coarse grid.
     """
     H, W = shape
 
@@ -159,8 +158,7 @@ def box_mask_or(mask, reach=7):
     window+SUPPORT of it — a strict superset of the per-tap significant-
     weight OR (any pixel whose Lanczos weight is nonzero lies within
     window+3). Costs ~12 shifted OR passes instead of 225 tap selects
-    (the exact per-tap mask OR was ~70% of the warp's 204 ms/quadrant;
-    tools/profile_stages.py r2)."""
+    (the exact per-tap mask OR dominated the warp's cost)."""
     out = mask
     covered = 0
     step = 1
@@ -175,14 +173,14 @@ def box_mask_or(mask, reach=7):
 
 
 # L(t) ~ 1 - (10/54) pi^2 t^2 near t=0 (the closed form is 0/0 there).
-# NOTE (r4 lesson, docs/PERF.md): a phase-trick weight-STACK construction
-# (angle-addition identity, shared transcendental fields per axis) halved
-# construction flops but regressed the whole program 226 -> 434 ms/frame
-# on the real chip — cheap planes flip XLA's fusion-duplication heuristic
-# into recomputing them inside every tap consumer, and
-# lax.optimization_barrier did NOT pin them under jit+vmap. The naive
-# per-tap lanczos3() stacks below are transcendental-expensive per plane,
-# which is precisely what makes XLA materialize them once in HBM.
+# NOTE: a phase-trick weight-STACK construction (angle-addition identity,
+# shared transcendental fields per axis) halved construction flops but
+# slowed the whole program on the accelerator it was first tuned for —
+# cheap planes flip XLA's fusion-duplication heuristic into recomputing
+# them inside every tap consumer, and lax.optimization_barrier did NOT pin
+# them under jit+vmap. The naive per-tap lanczos3() stacks below are
+# transcendental-expensive per plane, which is precisely what makes XLA
+# materialize them once in device memory.
 _TAYLOR_C = np.float32(10.0 / 54.0 * np.pi ** 2)
 
 
@@ -217,8 +215,8 @@ def warp_shift_mask(mask, u, v, window=4):
     weight and its row Lanczos weight each exceed sqrt(5e-3) in magnitude —
     the separable form of the gather warp's |wx*wy| > 5e-3 rule, chosen so
     the OR decomposes into two passes of 2(window+3)+1 integer taps each
-    (vs (2(window+3)+1)^2 fused taps, ~70% of the r2 warp cost;
-    docs/PERF.md). Taps outside the 6x6 Lanczos support have exactly zero
+    (vs (2(window+3)+1)^2 fused taps, which dominated the warp's cost).
+    Taps outside the 6x6 Lanczos support have exactly zero
     weight, so the result is independent of ``window`` whenever the true
     displacement is within it — the batched pipeline and the per-pair
     align path produce IDENTICAL masks even with different windows.
@@ -255,9 +253,9 @@ def warp_shift_image_mask(img, mask, u, v, window=4):
     """Shift-accumulate Lanczos-3 warp for small smooth displacements.
 
     Same math as ``warp_image_mask`` but expressed as whole-frame shifts
-    with per-pixel elementwise weights instead of gathers: TPU gathers cost
-    ~100 ms/tap at quadrant scale while shifted multiplies stream on the VPU
-    (~0.2 ms/tap). Valid when |u - x| and |v - y| <= ``window`` everywhere
+    with per-pixel elementwise weights instead of gathers (full-frame
+    gathers per tap were far slower than streamed shifted multiplies on
+    the accelerator this was first tuned for). Valid when |u - x| and |v - y| <= ``window`` everywhere
     (callers bound it from the mapping grid); the displacement range plus
     the 6-tap support sets the (2*(window+3))^2 tap count, so keep it for
     alignment-sized offsets and fall back to the gather warp beyond.
@@ -276,7 +274,7 @@ def warp_shift_image(img, u, v, window=4):
     """Maskless shift-accumulate Lanczos-3 warp (see
     warp_shift_image_mask). The mask taps in the fused variant live in
     the lax.scan CARRY, so XLA cannot dead-code them when the caller
-    ignores the mask output (~100+ ms of integer tap work per quadrant) —
+    ignores the mask output (a full set of integer taps per quadrant) —
     callers that propagate masks separately (box_mask_or) use this one.
     Returns (warped, coverage)."""
     H, W = img.shape
@@ -289,12 +287,10 @@ def warp_shift_image(img, u, v, window=4):
 
     lo = -(window + SUPPORT)
     hi = window + SUPPORT
-    # hoist the column weight fields: an (ntap, H, W) stack in HBM beats
-    # recomputing per-tap weight algebra inside the scan on v5e (the
-    # phase-trick per-tap form measured 160 ms vs 65 ms here AND took
-    # ~7 min to compile; the phase-trick stack CONSTRUCTION regressed the
-    # whole program 226 -> 434 ms/frame in r4 — see docs/PERF.md. The
-    # naive transcendental stacks stay.)
+    # hoist the column weight fields: an (ntap, H, W) stack in device
+    # memory beat recomputing per-tap weight algebra inside the scan (the
+    # phase-trick per-tap form was slower AND took minutes to compile;
+    # see the NOTE above lanczos3. The naive transcendental stacks stay.)
     wx = jnp.stack([lanczos3(du - dx) for dx in range(lo, hi + 1)])
     wxsum = jnp.sum(wx, axis=0)
     dys = jnp.arange(lo, hi + 1)
@@ -368,9 +364,9 @@ def warp_shift_image_sep(img, u, v, window=4, order=1):
 
     lo = -(window + SUPPORT)
     hi = window + SUPPORT
-    # HOIST the weight fields (same lesson as warp_shift_image: inline
-    # per-tap weight algebra measured 160 ms + a 7-min compile; an
-    # (ntap, H, W) HBM stack read back by cheap FMA taps wins)
+    # HOIST the weight fields (same lesson as warp_shift_image: an
+    # (ntap, H, W) stack read back by cheap FMA taps beat inline per-tap
+    # weight algebra, which also compiled for minutes)
     wx = jnp.stack([lanczos3(du - dx) for dx in range(lo, hi + 1)])
     wy = jnp.stack([lanczos3(dv - dy) for dy in range(lo, hi + 1)])
     if order >= 1:
@@ -513,12 +509,12 @@ def plan_warp(grid, out_shape, src_shape, max_window=8):
     """Host-side warp plan: decompose the mapping into an integer median
     offset + a small residual displacement.
 
-    The shift-accumulate warp streams on the VPU but only covers
+    The shift-accumulate warp streams elementwise but only covers
     |src - dst| <= window; generic mappings (coadd union grids, dithered
     alignments) carry a LARGE but nearly-constant offset. Removing the
     integer median offset with a pre-roll reduces them to a small residual
-    (optics distortion + rotation), so the fast path applies — full-frame
-    gather warps cost ~100 ms per tap at quadrant scale on TPU.
+    (optics distortion + rotation), so the shift-accumulate path applies
+    instead of the full-frame gather warp.
 
     Returns (du0, dv0, window) or None when the residual exceeds
     ``max_window`` or the rolled reads would leave the canvas (callers

@@ -18,12 +18,12 @@ flux ratio is carried entirely by the B_0 coefficient field.
 
 Fitting is linear least squares over star stamps: each stamp contributes
 rows  sum_{n,m} a_nm T_m(xc,yc) (B_n * R)(p) + bg  ~  S(p), accumulated into
-normal equations with inverse-variance weights and solved per region on the
-MXU (the whole build is batched conv + einsum). Iterative stamp rejection
+normal equations with inverse-variance weights and solved per region (the
+whole build is batched conv + einsum). Iterative stamp rejection
 (2 passes, 3-sigma in per-stamp chi2) mirrors hotpants' substamp clipping.
 
-TPU design notes
-----------------
+Design notes
+------------
 * Every Gaussian x monomial basis function is separable
   (B_n(u,v) = gx(u) gy(v)), so full-frame basis convolutions run as two 1-D
   convolutions each — O(K) not O(K^2) per pixel.
@@ -49,8 +49,9 @@ __all__ = ['KernelBasis', 'fit_kernel', 'apply_kernel',
 
 
 def _einsum_hi(*args, **kwargs):
-    """einsum at HIGHEST precision: TPU MXU default (bf16) is fatal to the
-    kernel-fit normal equations."""
+    """einsum at HIGHEST precision: a reduced-precision default (bf16
+    passes, or TF32 for f32 matmuls on the GPU) is fatal to the kernel-fit
+    normal equations."""
     kwargs.setdefault('precision', jax.lax.Precision.HIGHEST)
     return jnp.einsum(*args, **kwargs)
 
@@ -164,17 +165,14 @@ def fit_kernel(ref, sci, ivar, xs, ys, svalid, basis_gx, basis_gy,
     W_s = jax.vmap(lambda a, b: cutout(ivar, a, b))(x0, y0)
     # keep the cutout stamps OUT of the basis-convolution fusion: XLA
     # otherwise fuses the vmapped slices into a full-frame-height
-    # convolution ((3080, 8, 384, 49) intermediates, ~78 ms in device
-    # traces)
+    # convolution ((3080, 8, 384, 49) intermediates)
     R_s, S_s, W_s = jax.lax.optimization_barrier((R_s, S_s, W_s))
 
     # basis-convolved reference stamps C (S, Nb, Pi, Pi) via im2col + ONE
-    # HIGHEST einsum on the MXU: patches X (S, Pi, Pi, K*K) from K*K static
-    # slices (tiny: S*Pi*Pi*225 floats), contracted against the dense
-    # basis (Nb, K*K). The grouped separable 1-D convs this replaces ran
-    # ~25 ms/frame — XLA's conv emitter runs ~1000x below MXU peak at
-    # these channel counts (docs/PERF.md), while this einsum is
-    # MXU-shaped: M=S*Pi^2, K=225, N=Nb.
+    # HIGHEST einsum: patches X (S, Pi, Pi, K*K) from K*K static slices
+    # (tiny: S*Pi*Pi*225 floats), contracted against the dense basis
+    # (Nb, K*K) — one matmul of shape M=S*Pi^2, K=225, N=Nb in place of
+    # grouped separable 1-D convs at small channel counts.
     hi = jax.lax.Precision.HIGHEST
     X = jnp.stack([R_s[:, dy:dy + Pi, dx:dx + Pi]
                    for dy in range(K) for dx in range(K)],
@@ -227,7 +225,7 @@ def fit_kernel(ref, sci, ivar, xs, ys, svalid, basis_gx, basis_gy,
         okf = (stamp_ok & svalid).astype(jnp.float32)
         sw = wf * okf[:, None]
         # F_s[(p),(n,m)] = C[s,n,p] * T[s,m]; plus bg column of ones
-        # G_s = F^T diag(w) F ; assembled with einsums (MXU), the ok
+        # G_s = F^T diag(w) F ; assembled with einsums, the ok
         # scalar folded into the stamp->region one-hot
         rhow = rhot * okf[:, None]                               # (S, R2)
         G_bb = _einsum_hi('snm,skl,sr->rnkml', CtC0, TT, rhow)
@@ -253,7 +251,7 @@ def fit_kernel(ref, sci, ivar, xs, ys, svalid, basis_gx, basis_gy,
         a = coeffs[:, :Nb * Nm].reshape(R2, Nb, Nm)
         bg = coeffs[:, -1]
         a_s = _einsum_hi('sr,rnm->snm', rhot, a)
-        bg_s = rhot @ bg
+        bg_s = _einsum_hi('sr,r->s', rhot, bg)
         wmap = _einsum_hi('snm,sm->sn', a_s, T)                  # (S,Nb)
         return _einsum_hi('sn,snp->sp', wmap, Cf) + bg_s[:, None]
 
@@ -309,7 +307,7 @@ def fit_kernel(ref, sci, ivar, xs, ys, svalid, basis_gx, basis_gy,
         a = coeffs[:, :Nb * Nm].reshape(R2, Nb, Nm)
         bg = coeffs[:, -1]
         a_s = _einsum_hi('sr,rnm->snm', rhot, a)
-        bg_s = rhot @ bg
+        bg_s = _einsum_hi('sr,r->s', rhot, bg)
         wmap = _einsum_hi('snm,sm->sn', a_s, T)                  # (S,Nb)
         model = _einsum_hi('sn,snp->sp', wmap, Cf) + bg_s[:, None]
         resid2 = (model - yf) ** 2 * wf
@@ -380,13 +378,10 @@ def _basis_layout(degrees):
 def apply_kernel_fast(ref, coeffs, basis_gx, basis_gy, basis_sums, b0_2d,
                       order=KERNEL_SPATIAL_ORDER, nreg=NREG_SIDE,
                       degrees=KERNEL_GAUSS_DEGREES):
-    """Apply-formulation dispatcher. The grouped separable conv remains
-    the fastest measured form on v5e at 76.5 ms/quadrant; every denser
-    MXU formulation LOST badly on this toolchain (docs/PERF.md r3):
-    8-row-blocked banded einsum 2298 ms, per-region dense NHWC conv2d
-    520 ms, and even a bare (15,15)x(15,HW) einsum costs 1772 ms — XLA
-    here runs big-N small-K contractions ~1000x below MXU peak. Kept as
-    the single call site so a future toolchain can swap the winner."""
+    """Apply-formulation dispatcher: the space-to-depth matmul form
+    (:func:`apply_kernel_s2d`) where the frame tiles into 8x8 cells, else
+    the grouped separable conv (:func:`apply_kernel`). Kept as the single
+    call site so an A/B on the card (PERF.md) can swap the winner."""
     H, W = ref.shape
     if H % 8 == 0 and W % 8 == 0 and basis_gx.shape[1] <= 17:
         return apply_kernel_s2d(ref, coeffs, basis_gx, basis_gy,
@@ -408,15 +403,13 @@ def _inv_s2d(z, d=8):
     return jnp.transpose(z, (0, 2, 1, 3)).reshape(HY * d, WX * d)
 
 
-@partial(jax.jit, static_argnames=('order', 'nreg', 'mode'))
+@partial(jax.jit, static_argnames=('order', 'nreg'))
 def apply_kernel_s2d(ref, coeffs, basis_gx, basis_gy, basis_sums, b0_2d,
-                     order=KERNEL_SPATIAL_ORDER, nreg=NREG_SIDE,
-                     mode='highest'):
-    """MXU-shaped apply: space-to-depth dense conv per region panel.
+                     order=KERNEL_SPATIAL_ORDER, nreg=NREG_SIDE):
+    """Matmul-shaped apply: space-to-depth dense conv per region panel.
 
-    The grouped separable conv streams 2*Nb 1-D convs on the VPU
-    (76.5 ms/quadrant); XLA's TPU conv emitter only reaches the MXU at
-    CNN-like channel counts. So: fold the 49-function basis and the
+    The grouped separable conv streams 2*Nb 1-D convs at small channel
+    counts, which a matrix unit cannot use. So: fold the 49-function basis and the
     per-region spatial-term coefficients into Nm dense 15x15 kernels per
     region, pack the frame (H, W) -> (H/8, W/8, 64) space-to-depth, and
     run each region's panel as ONE 3x3 x 64 -> 64*Nm NHWC conv (the
@@ -425,10 +418,8 @@ def apply_kernel_s2d(ref, coeffs, basis_gx, basis_gy, basis_sums, b0_2d,
     semantics at frame borders; interior panel edges read real
     neighboring cells from the globally padded pack, so the result is
     bit-comparable to :func:`apply_kernel` (tests/test_subtract.py pins
-    <1e-4 relative).
+    <1e-4 relative). The one matmul runs in f32 at HIGHEST precision.
 
-    mode: 'highest' (f32 HIGHEST dot — the measured winner, 24.7 ms vs
-    141.5 ms for an explicit bf16 hi/lo 3-pass on v5e), 'hilo', 'bf16'.
     Reference config: hotpants -ko 4 -nrx 3 -nry 3
     (zuds/hotpants.py:77-93).
     """
@@ -503,22 +494,9 @@ def apply_kernel_s2d(ref, coeffs, basis_gx, basis_gy, basis_sums, b0_2d,
     X = jnp.stack(cols).reshape(R2, PYm * PXm, 9 * 64)
     wmat = wbig.reshape(R2, 9 * 64, 64 * Nm)
 
-    # ONE batched matmul — the MXU shape (M=PYm*PXm, K=576, N=64*Nm);
-    # per-panel convs at (129, 130) spatial measured 2618 ms on v5e (the
-    # conv emitter needs large spatial tiles), the batched dot runs the
-    # identical FLOPs as clean 128x128 MXU tiles
-    if mode == 'highest':
-        out = _einsum_hi('rps,rsn->rpn', X, wmat)
-    else:
-        Xh = X.astype(jnp.bfloat16)
-        wh = wmat.astype(jnp.bfloat16)
-        mm = partial(jnp.einsum, 'rps,rsn->rpn',
-                     preferred_element_type=jnp.float32)
-        out = mm(Xh, wh)
-        if mode == 'hilo':
-            Xl = (X - Xh.astype(jnp.float32)).astype(jnp.bfloat16)
-            wl = (wmat - wh.astype(jnp.float32)).astype(jnp.bfloat16)
-            out = out + mm(Xh, wl) + mm(Xl, wh)
+    # ONE batched matmul (M=PYm*PXm, K=576, N=64*Nm) in place of
+    # per-panel convs: the identical FLOPs as large regular tiles
+    out = _einsum_hi('rps,rsn->rpn', X, wmat)
     out = out.reshape(R2, PYm, PXm, 64, Nm)
 
     wx_h = W / (2.0 * nreg)
@@ -601,10 +579,10 @@ def apply_kernel(ref, coeffs, basis_gx, basis_gy, basis_sums, b0_2d,
     y_edges = [int(math.ceil(r * H / nreg)) for r in range(nreg)] + [H]
     x_edges = [int(math.ceil(r * W / nreg)) for r in range(nreg)] + [W]
 
-    # TPU conv discipline: raw basis convolutions as chunked grouped
-    # separable convs (a python loop of single-channel 1-D convs costs
-    # ~145x more on v5e); combination over the basis dimension is a small
-    # matmul per static region slice — zero mask fields.
+    # raw basis convolutions as chunked grouped separable convs (one
+    # launch per chunk, not a python loop of single-channel 1-D convs);
+    # combination over the basis dimension is a small matmul per static
+    # region slice — zero mask fields.
     hi = jax.lax.Precision.HIGHEST
     pad = (K // 2, (K - 1) // 2)
     CHUNK = 49
@@ -695,7 +673,7 @@ def propagate_ref_var(ref_rms, coeffs, basis_gx, basis_gy, basis_sums,
     hotpants' noise-image propagation (its ``-oni`` output convolves the
     template variance with the squared kernel; zuds/hotpants.py:81).
 
-    TPU cost note: runs one 'valid' conv per STATIC region slice (zero-padded
+    Cost note: runs one 'valid' conv per STATIC region slice (zero-padded
     at frame edges), totalling a single full-frame KxK conv of work — the
     naive form (R2 full-frame convs + masked select) costs R2x more."""
     import math
@@ -719,7 +697,7 @@ def propagate_ref_var(ref_rms, coeffs, basis_gx, basis_gy, basis_sums,
             c = jax.lax.conv_general_dilated(
                 sl, k2, (1, 1), [(0, 0), (0, 0)],
                 dimension_numbers=('NCHW', 'OIHW', 'NCHW'),
-                precision=jax.lax.Precision.HIGH)[0, 0]
+                precision=jax.lax.Precision.HIGHEST)[0, 0]
             row.append(c)
         rows.append(jnp.concatenate(row, axis=1))
     return jnp.concatenate(rows, axis=0)

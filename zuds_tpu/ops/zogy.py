@@ -4,7 +4,7 @@ The second subtraction path required by the rebuild spec (BASELINE.json
 north-star; no reference-code equivalent — hotpants was the reference's only
 subtraction engine). Implements Zackay, Ofek & Gal-Yam (2016): the proper
 difference image D, its PSF P_D, and the matched-filter score image S_corr,
-entirely as FFT algebra on device — ideal TPU work (large batched FFTs).
+entirely as FFT algebra on device (large batched FFTs).
 
 PSF estimation: sigma-clipped mean of recentered bright-star cutouts
 (``estimate_psf_from_stars``), the on-device analogue of the reference's

@@ -1,7 +1,7 @@
 """Device mesh + sharding helpers.
 
 The reference's parallelism is file-list data parallelism over MPI ranks
-(SURVEY §2.3); the TPU-native equivalent shards *batches of quadrants* over
+(SURVEY §2.3); the device-native equivalent shards *batches of quadrants* over
 the chip mesh: axis ``data`` carries independent quadrants (embarrassingly
 parallel, like the reference's ranks), axis ``space`` optionally shards
 image rows of very large frames (full-CCD mosaics) with XLA inserting halo

@@ -56,8 +56,8 @@ _MAXPOW = int(max(_XPOW.max(), _YPOW.max(), _RPOW.max()))
 def _pow_table(v):
     """(..., _MAXPOW+1) cumulative powers v**0..v**max by repeated
     multiplication — numpy's generic float**int-array pow is ~20x slower
-    and dominated pixel_mapping's Newton solve (r5 profile: ~1.9 s/pair
-    of the night driver's host path)."""
+    and dominated pixel_mapping's Newton solve on the night driver's host
+    path."""
     out = np.empty(v.shape + (_MAXPOW + 1,), dtype=np.float64)
     out[..., 0] = 1.0
     for p in range(1, _MAXPOW + 1):
